@@ -14,7 +14,7 @@ measured on the host CPU in complementary ways:
     an N-device virtual CPU mesh, pinned to N cores with XLA's shared
     intra-op pool disabled (one compute thread per device). The virtual
     devices share one PJRT CPU client, which serializes parts of
-    multi-device execution that real TPU chips run truly concurrently,
+    multi-device execution that real accelerator cards run concurrently,
     so this mode UNDERSTATES hardware scaling; recorded as the
     pessimistic bound.
   * ``sp_*``: the halo-exchange ShardedStft, three ways — an in-process
@@ -37,12 +37,12 @@ physically impossible 1.17 "efficiency" from single-run N=1 noise):
     baseline noise (``noise_flag``) and a clamped value recorded — it is
     never presented as a headline number.
 
-CPU-mesh numbers are *indicative* (host cores are shared, unlike TPU
-chips); the point is that the dp chain has zero cross-frame communication
+CPU-mesh numbers are *indicative* (host cores are shared, unlike separate
+cards); the point is that the dp chain has zero cross-frame communication
 so nothing in the program scales worse than the hardware does.
 
 Run: python bench_scaling.py            # prints one JSON line per row
-     python bench_scaling.py --record   # also writes SCALING_r05.json
+     python bench_scaling.py --record   # also writes chiprun_out/scaling.json
 """
 
 from __future__ import annotations
@@ -547,15 +547,15 @@ def main() -> int:
                 "sp efficiency' was this baseline artifact, as the "
                 "decomposition shows: no_halo/local_only match full within "
                 "noise, and the 2-process Gloo mode scales at ~1.0). "
-                "CPU numbers are indicative; no multi-chip TPU exists in "
-                "this deployment."
+                "CPU numbers are indicative, not a measurement of cards."
             ),
             "baseline_target": "≥0.80 efficiency at N=2 (BASELINE.md)",
             "rows": rows,
         }
-        with open("SCALING_r05.json", "w") as f:
+        os.makedirs("chiprun_out", exist_ok=True)
+        with open("chiprun_out/scaling.json", "w") as f:
             json.dump(artifact, f, indent=2)
-        print("wrote SCALING_r05.json")
+        print("wrote chiprun_out/scaling.json")
     return 0
 
 

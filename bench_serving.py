@@ -20,7 +20,10 @@ on the accelerator lock — same model as one MPS worker per replica), so
 concurrency measures queueing + host overhead on top of compute, not
 recompiles.
 
-Run: python bench_serving.py [--record]   # --record writes SERVING_r05.json
+The server runs in this process, on threads: one JAX process uses the card.
+
+Run: python bench_serving.py [--record]   # --record writes
+     chiprun_out/serving.json
 """
 
 from __future__ import annotations
@@ -184,9 +187,10 @@ def main() -> int:
                 "warmup request excluded"),
             "rows": rows,
         }
-        with open("SERVING_r05.json", "w") as f:
+        os.makedirs("chiprun_out", exist_ok=True)
+        with open("chiprun_out/serving.json", "w") as f:
             json.dump(artifact, f, indent=2)
-        print("wrote SERVING_r05.json")
+        print("wrote chiprun_out/serving.json")
     return 0
 
 

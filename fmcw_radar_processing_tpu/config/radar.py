@@ -12,9 +12,9 @@ Three tiers, mirroring the reference's config story
     (`radar_processing.m:131-154`).
 
 All three are frozen dataclasses so they hash — they can be passed as static
-arguments to `jax.jit`-compiled functions, which is the TPU-native way to
-thread configuration into a compiled graph (compile-time constants, no
-device transfers, full constant folding).
+arguments to `jax.jit`-compiled functions: configuration enters the
+compiled graph as compile-time constants (no device transfers, full
+constant folding).
 """
 
 from __future__ import annotations
@@ -77,75 +77,23 @@ class AlgorithmConfig:
     max_freq_bins: int = 1024  # log-frequency output bins, :293
     batch_size: int = 100  # activity-mode frames per batch, :189
     max_plots: int = 4  # activity-mode spectrogram cap, :443
-    # MXU pass count for f32 matmuls ("default" = 1 bf16 pass, "high" = 3,
-    # "highest" = 6). TPU MXUs multiply in bfloat16; a nominally-f32 matmul
-    # at DEFAULT precision quantizes both operands to 8-bit mantissas —
-    # measured on a v5e this is what capped the chain's waterfall SNR at
-    # ~55 dB and the spectrogram at ~36 dB vs the f64 oracle
-    # (SNR_LADDER.json; the same code on CPU holds 140 dB). "highest"
-    # recovers true f32 results; the throughput cost is recorded per
-    # precision in BENCH_MATRIX.json. The bf16 impl variants are the
-    # explicit speed knob and ignore this setting.
+    # Precision of the chain's f32 matmuls: "default" | "high" | "highest".
+    # utils/cplx.mxu_precision says what each runs as on the GPU (one TF32
+    # pass / three TF32 passes / full f32 off the tensor cores). One TF32
+    # pass keeps about three decimal digits, far short of the 100 dB
+    # waterfall criterion, so the default is full f32.
     matmul_precision: str = "highest"
-    # Log-frequency rescale formulation: "matmul" (dense [1024, nb] MXU
-    # contraction at rescale_precision — default) or "gather" (exact f32
-    # lerp via two static row-gathers). Both raced on the v5e: the XLA
-    # gather runs at 15.9 ms per 16k frames vs the matmul's 0.8/2.3/4.4 ms
-    # at 1/3/6 MXU passes — TPU gathers neither tile nor pipeline, so the
-    # dense form wins despite 400× the nominal FLOPs. Gather is kept for
-    # CPU-targeted runs, where it is both exact and cheap.
-    rescale_method: str = "matmul"
-    # MXU pass count for the rescale contraction alone. It is the one
-    # FLOPs-dense matmul of the chain (2·1024·129 per STFT column — the
-    # DFT/STFT matmuls hide their extra passes under HBM traffic, measured
-    # +0.2 ms at "highest"; the rescale does not). "high" (3-pass) keeps
-    # the interpolation within 2^-21 relative — ≤ 5e-4 dB even at the
-    # −1000 dB floor — for a third of "highest"'s cost.
-    rescale_precision: str = "high"
-    # Spectrogram-export implementation: "xla" = StftOperator + psd_db +
-    # log_frequency_rescale (framed matmuls, works everywhere);
-    # "pallas" = the fused two-phase kernel pair (ops/stft_pallas.py —
-    # frame matrix and complex parts never reach HBM; TPU, hop-1 only);
-    # "auto" = pallas on TPU when hop is 1, else xla.
-    stft_impl: str = "auto"
     # Storage dtype of the [1024, T] log-frequency intensity map — the
-    # single largest HBM tensor of the chain (~2/3 of its write traffic at
-    # hop 1). "bfloat16" halves that traffic at a quantization cost of
-    # ~±0.15 dB per bin (8-bit mantissa on dB values; SNR per variant
-    # recorded in BENCH_MATRIX.json). "int8" quarters it: the kernel
-    # epilogue emits an affine-quantized dB value over INT8_DB_RANGE
+    # single largest tensor of the chain, and the largest device-to-host
+    # transfer. "bfloat16" halves it at a quantization cost of ~±0.125 dB
+    # per bin at the display clim (8-bit mantissa on dB values). "int8"
+    # quarters it: an affine-quantized dB value over INT8_DB_RANGE
     # (chosen around the reference PNG's clim [−40, 0],
     # radar_processing.m:340 — step ≈ 0.165 dB ⇒ round-to-nearest error
-    # ≤ 0.083 dB in-range, within the ≤ 0.15 dB display-band promotion
-    # criterion; bins outside the range clamp, which only touches
-    # sub-display values). Payloads are converted back to f32 on the host
-    # either way.
+    # ≤ 0.083 dB in-range, within the ≤ 0.15 dB display-band criterion;
+    # bins outside the range clamp, which only touches sub-display values).
+    # Payloads are converted back to f32 on the host either way.
     intensity_dtype: str = "float32"
-    # MXU pass count of the fused Pallas export's phase-1 DFT dot
-    # (ops/stft_pallas.py): "highest" = true f32 (6 passes) — the
-    # fidelity default, so the bare AlgorithmConfig / MPS-parity serve
-    # path emits oracle-grade artifacts; "high" = bf16x3 (3 passes,
-    # ~2^-18 *absolute* PSD noise: µdB in the display band, up to ~0.5 dB
-    # at deep spectral nulls). production() opts into "high" — measured
-    # +8% end to end (BENCH_MATRIX r4) under the recorded display-band
-    # criterion. Only consulted when the untiled materializing Pallas
-    # export runs; the tiled (large-nfft) and recompute formulations are
-    # HIGHEST-only.
-    stft_psd_precision: str = "highest"
-    # Storage dtype of the [nb, T] PSD round-trip between the fused
-    # export's two kernel phases — pure inter-kernel traffic on a
-    # bandwidth-bound chain. "bfloat16" halves it at ~2^-9 relative
-    # (≤ ~0.034 dB measured through the dB map — p and gmax quantize
-    # together). Untiled materializing Pallas path only; fidelity
-    # default "float32".
-    stft_psd_store: str = "float32"
-    # Storage dtype of the [nb, T] dB map the export writes (consumed by
-    # the host for the PNG/payloads; nothing re-reads it on device).
-    # "bfloat16" halves that write at ≤ 0.125 dB quantization at the clim
-    # edge — below one 8-bit color step of the reference PNG's 40 dB
-    # range; DB_FLOOR is exactly bf16-representable so floor equality
-    # survives. Untiled materializing Pallas path only.
-    stft_db_store: str = "float32"
     # --- literal-compat flags (SURVEY Appendix A; default = intent) ---
     # Quirk #1: the 'no' branch writes target_measurements.(fr_idx, j) into
     # arrays preallocated zeros(T, F) (radar_processing.m:157-159 vs
@@ -162,42 +110,21 @@ class AlgorithmConfig:
 
     @classmethod
     def production(cls, **overrides) -> "AlgorithmConfig":
-        """The measured production throughput profile (r4 matrix).
+        """The production throughput profile.
 
-        Promotion criterion (recorded per VERDICT r3 item 1): the fastest
-        grid point whose EXPORTED artifacts are each either ≥ 100 dB SNR
-        vs the f64 oracle or display-band-bounded ≤ 0.15 dB at the
-        reference's clim [−40, 0] (radar_processing.m:340). Winner
-        (BENCH_MATRIX.json, v5e): chain impl ``pallas_profile_high``
-        (bf16x3 — waterfall 110.1 dB, ranges exact) + fused Pallas export
-        with the bf16x3 phase-1 PSD kernel (its ~2^-18 absolute PSD noise
-        is µdB in the display band; only deep spectral nulls move) and
-        kernel-emitted bf16 intensity — measured 4.87M frames/s with
-        display-band err 0.125 dB, vs 3.48M for the all-f32 chain+export.
-        The next-faster point (pallas_profile_bf16 + bf16 intensity)
-        drops the exported waterfall to 55 dB and therefore stays opt-in
-        rather than default. stft_nfft pins the 256-bucket (production
-        STFT); the bare ``AlgorithmConfig()`` remains the
-        reference-fidelity profile (hop-1, nfft = 2^nextpow2(L), f32
-        artifacts) used by the MPS-parity serve path and the oracle tests.
+        Criterion: each EXPORTED artifact is either ≥ 100 dB SNR vs the
+        f64 oracle or within 0.15 dB of it in the display band, the
+        reference's clim [−40, 0] (radar_processing.m:340). The profile
+        pins the STFT to the 256-point bucket, stores the intensity map in
+        bfloat16 (≤ 0.125 dB at the clim edge) and runs the chain's
+        matmuls at "high" (three TF32 passes on the GPU). The bare
+        ``AlgorithmConfig()`` remains the reference-fidelity profile
+        (hop-1, nfft = 2^nextpow2(L), f32 artifacts) used by the MPS-parity
+        serve path and the oracle tests.
         """
         base: dict = dict(stft_nfft=256, intensity_dtype="bfloat16",
-                          stft_psd_precision="high",
-                          stft_db_store="bfloat16")
+                          matmul_precision="high")
         base.update(overrides)
-        # (r5) stft_db_store="bfloat16" joined the profile: the exported
-        # dB map is host-consumed only, so quantizing its STORE
-        # (≤ 0.125 dB at the clim edge — under one PNG color step) leaves
-        # the intensity artifact untouched (the in-kernel interpolation
-        # consumes the f32 value) — measured +3% end to end.
-        # stft_psd_store="bfloat16" (another ~+2%) was TRIED AND DEMOTED:
-        # its display-band error rides the whole map through the gmax
-        # normalization and, with the max-of-quantized-values
-        # normalization (the correct invariant), measures a consistent
-        # ~0.155 dB across a 3-seed workload sweep — OVER the 0.15
-        # criterion (production itself holds a stable 0.1253–0.1254 on
-        # the same sweep: the bf16-intensity hard bound). It remains an
-        # explicit opt-in for display-tolerant deployments.
         return cls(**base)
 
 

@@ -68,11 +68,9 @@ def search_peaks(profile: jax.Array, cfg: RadarConfig) -> DetectionResult:
     masked = jnp.where(eligible, profile, neg)
     t = cfg.algorithm.max_num_targets
     if t == 1:
-        # top_k lowers to a sort on TPU; argmax is a plain VPU reduction.
-        # The magnitude at the argmax IS the max — a second reduction, not
-        # a take_along_axis: the row gather cost a measured 669 µs per
-        # 65k frames (4.4% of chain device time, ROOFLINE_r04) where the
-        # max fuses into the same pass as the argmax.
+        # One target: argmax, a plain reduction, instead of top_k's sort.
+        # The magnitude at the argmax IS the max — a second reduction that
+        # fuses into the same pass, not a row gather.
         idx = jnp.argmax(masked, axis=-1)[..., None]
         mag = jnp.max(masked, axis=-1)[..., None]
     else:

@@ -1,4 +1,4 @@
-"""Fast-time (range) processing as a single fused MXU matmul.
+"""Fast-time (range) processing as a single fused matmul.
 
 The reference's fast-time chain (radar_processing.m:201-207) is, per chirp
 column x ∈ C^NTS:
@@ -13,12 +13,11 @@ Every step is linear (or affine) in x, so the whole chain collapses to
     Y = M x − M·(calib·IF_scale),
     M = F_K[:, :NTS] · diag(w) · (I − 11ᵀ/NTS) · IF_scale
 
-one K×NTS complex matrix applied to every chirp of every frame. On TPU this
-is the idiomatic formulation: a zero-padded 256-point FFT of a 64-sample
-chirp *is* a 256×64 matrix multiply, and batching it over
-(frames · chirps) columns turns the reference's serial per-frame loop
-(radar_processing.m:197) into one large MXU matmul with perfect weight
-reuse — no FFT butterflies, no scalar loops, no per-frame dispatch.
+one K×NTS complex matrix applied to every chirp of every frame. A
+zero-padded 256-point FFT of a 64-sample chirp *is* a 256×64 matrix
+multiply, and batching it over (frames · chirps) rows turns the reference's
+serial per-frame loop (radar_processing.m:197) into one large matmul with
+perfect weight reuse — no FFT butterflies, no per-frame dispatch.
 
 Complex values use the pair convention (utils/cplx.py — trailing [re, im]
 axis): the graph contains only real float32 ops. The operator matrix is
@@ -105,7 +104,7 @@ class FastTimeOperator:
 
 @dataclasses.dataclass(frozen=True)
 class PackedFastTime:
-    """Fast-time operator as ONE real matmul (the HBM-lean formulation).
+    """Fast-time operator as ONE real matmul (the memory-lean formulation).
 
     The 4-einsum complex contraction (`pair_matmul`) reads the de-interleaved
     re/im planes separately and re-interleaves the result — several extra
@@ -118,29 +117,24 @@ class PackedFastTime:
         W [2n+1, 2k+0] = −M.im[k,n]    W [2n+1, 2k+1] = M.re[k,n]
         Y = X @ W  →  Y [rows, 2k+(0|1)] = (re|im) of bin k   (reshape → pair)
 
-    One MXU matmul, one read of X, one write of Y. `profile()` goes further:
-    when only the integrated range profile is needed (detection), the abs-max
-    reduction over chirps fuses into the matmul consumer and the full
-    [F, PN, K, 2] range-FFT tensor is never written to HBM; `rf_at_bins()`
-    then recomputes the few detected bins' chirp rows with a gathered-weight
-    matmul (T·2 columns instead of K·2) — recompute-over-materialize, the
-    standard TPU trade for memory-bound chains.
+    One matmul, one read of X, one write of Y. `profile()` returns only the
+    integrated range profile (detection's input): the chirp max reads the
+    product back once and the [F, PN, K, 2] range-FFT tensor is never
+    returned; `rf_at_bins()` then recomputes the few detected bins' chirp
+    rows with a gathered-weight matmul (T·2 columns instead of K·2) —
+    recompute over materialize.
     """
 
     w: np.ndarray  # (2·NTS, 2·K) float32 packed weight
     nts: int
     k: int
-    # MXU input precision for the DFT matmul. float32 (default) is exact
-    # when paired with precision="highest"; bfloat16 halves HBM traffic of
-    # the dominant operand and runs single-pass MXU — accumulation stays
-    # float32 (preferred_element_type), so only the 8-bit-mantissa
-    # quantization of inputs/weights is lost. The accuracy cost is
-    # measured, not guessed: bench.py's matrix records SNR per variant.
+    # Input dtype of the DFT matmul. float32 (default) is exact when paired
+    # with precision="highest"; bfloat16 halves the bytes of the dominant
+    # operand — accumulation stays float32 (preferred_element_type), so
+    # only the 8-bit-mantissa quantization of inputs/weights is lost.
     compute_dtype: jnp.dtype = jnp.float32
-    # MXU pass count for the f32 path ("default"/"high"/"highest" = 1/3/6
-    # bf16 passes). See AlgorithmConfig.matmul_precision — DEFAULT silently
-    # quantizes f32 operands to bf16 on TPU. Ignored for bf16 inputs
-    # (already single-pass exact in the input dtype).
+    # matmul_precision name for the f32 path (utils/cplx.mxu_precision).
+    # Ignored for bf16 inputs.
     precision: str = "highest"
 
     @classmethod
@@ -173,7 +167,7 @@ class PackedFastTime:
         excess-precision folding otherwise elides a convert(f32→bf16)
         feeding an f32-accumulating dot (the operand is silently kept in
         f32) — measured err vs f32 was exactly 0 without the barrier, i.e.
-        neither the quantization nor the MXU-rate benefit was real.
+        neither the quantization nor the bf16 rate benefit was real.
         """
         w = jnp.asarray(self.w)
         if self.compute_dtype != jnp.float32:
@@ -198,13 +192,9 @@ class PackedFastTime:
     def _flat_rows(self, raw: jax.Array) -> jax.Array:
         """Normalize raw chirps to flat pair-rows [..., 2·NTS].
 
-        Accepts [..., NTS, 2] (pair layout) or [..., 2·NTS] (flat). Feeding
-        the FLAT layout across the jit boundary matters on TPU: a
-        [..., NTS, 2] *parameter* gets a device tiling keyed to the size-2
-        minor axis, and reshaping it in-graph to matmul rows is a real
-        relayout pass (measured ~8 ms for a 65k-frame recording on a v5e —
-        more than the DFT matmul itself). Callers that own the host buffer
-        should reshape there (a free view) and pass [..., 2·NTS].
+        Accepts [..., NTS, 2] (pair layout) or [..., 2·NTS] (flat). Callers
+        that own the host buffer reshape there (a free view) and pass
+        [..., 2·NTS], so no in-graph relayout is needed.
         """
         if raw.shape[-1] == 2 * self.nts:
             return raw.astype(jnp.float32)
@@ -217,9 +207,9 @@ class PackedFastTime:
         return y - self.offset(calib)
 
     def profile(self, raw: jax.Array, calib: jax.Array) -> jax.Array:
-        """Integrated range profile [..., K] WITHOUT materializing the
-        range FFT (abs-max over chirps fused into the matmul epilogue —
-        radar_processing.m:205,210 collapsed into one kernel)."""
+        """Integrated range profile [..., K] (abs-max over chirps,
+        radar_processing.m:205,210). XLA writes the [..., PN, 2K] matmul
+        product and reads it back for the max."""
         y = self.rf(raw, calib)
         return jnp.max(
             jnp.sqrt(y[..., 0] ** 2 + y[..., 1] ** 2), axis=-2

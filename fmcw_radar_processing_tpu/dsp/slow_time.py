@@ -7,15 +7,15 @@ data-dependent gather/mutate (radar_processing.m:216-219):
     2. Chebyshev window across chirps                              (:219)
     3. 16-point FFT across chirps + fftshift                       (:219)
 
-On TPU we compute the *full* range-Doppler map instead: all three steps are
-linear along the chirp axis, so they fold into one PN→D complex matrix
+``SlowTimeOperator`` computes the *full* range-Doppler map: all three steps
+are linear along the chirp axis, so they fold into one PN→D complex matrix
 
     A = S_shift · F_D · P_pad/trunc · diag(chebwin) · (I − 11ᵀ/PN)
 
 and the map is one batched matmul  RD[..., K, D] = Yᵀ A ᵀ.  Computing all
-256 bins costs less on the MXU than a data-dependent gather of 1 bin costs
-in lost fusion and dynamic shapes; values at detected bins are identical to
-the reference's because the per-bin operations don't couple bins.
+256 bins as one matmul avoids a data-dependent gather and dynamic shapes;
+values at detected bins are identical to the reference's because the
+per-bin operations don't couple bins.
 
 Doppler peak extraction (radar_processing.m:227-239): argmax of |RD| over
 Doppler bins at each detected range bin; accept iff value ≥
@@ -96,7 +96,7 @@ def doppler_at_bins(
     The reference computes the Doppler FFT solely at detected bins
     (radar_processing.m:216-219); for T = max_num_targets ≪ K this gathered
     form does T/K of the full-map work and never materializes the
-    [F, K, D, 2] cube in HBM.
+    [F, K, D, 2] cube in device memory.
 
     range_fft: [..., PN, K, 2]; idx: [..., T] range-bin indices.
     Returns rd rows [..., T, D, 2].

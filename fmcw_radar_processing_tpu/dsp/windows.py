@@ -5,7 +5,7 @@ The reference uses MATLAB Signal Processing Toolbox windows
 :276: ``kaiser(20, 3)``). Windows are configuration-time constants — they are
 computed once on the host in float64 and folded into the DFT operator
 matrices (see dsp/fast_time.py), so these are deliberately NumPy, not JAX:
-nothing here ever runs per-sample on the TPU.
+nothing here ever runs per-sample on the device.
 
 All three are implemented from first principles (no scipy dependency in the
 library; scipy is only used by the test oracle for cross-checking).

@@ -6,7 +6,7 @@ no pybind11; the C ABI + ctypes is the binding layer) and caches it under
 compiler is available, so the pure-Python path always works.
 
 The native reader is the streaming data loader: it reads only the
-requested frame window of the requested antenna and emits the TPU pair
+requested frame window of the requested antenna and emits the device pair
 layout directly — constant memory for arbitrarily long recordings, no
 whole-file np.frombuffer, no transpose/copy chain.
 """

@@ -10,7 +10,7 @@ specified by the call sites:
     sXML           : device configuration                   (:94-115)
 
 This module defines a self-describing binary container carrying exactly
-that logical content, laid out for zero-copy NumPy/TPU consumption:
+that logical content, laid out for zero-copy NumPy/device consumption:
 
     header  : magic 'FMCWTPU0' (8 bytes), uint32 version, uint32 frame_count,
               uint32 num_rx, uint32 n_cal, uint32 pn, uint32 nts,
@@ -19,7 +19,7 @@ that logical content, laid out for zero-copy NumPy/TPU consumption:
               (the reference's calib_data layout, radar_processing.m:171-172)
     frames  : float32, index order [frame][rx][chirp][sample][iq] —
               chirps-then-samples-innermost so a single ``view(complex64)``
-              + ``reshape`` yields the TPU layout [F, R, PN, NTS] with no
+              + ``reshape`` yields the chain layout [F, R, PN, NTS] with no
               transposes or copies.
 
 A recording on disk is the XML config (io/loaders schema) next to the
@@ -75,7 +75,7 @@ class RawRecording:
         return self.frames[:, 0]
 
     def rx1_pair(self) -> np.ndarray:
-        """rx1 frames in the TPU pair layout [F, PN, NTS, 2] float32."""
+        """rx1 frames in the pair layout [F, PN, NTS, 2] float32."""
         from fmcw_radar_processing_tpu.utils.cplx import to_pair
 
         return to_pair(self.rx1())

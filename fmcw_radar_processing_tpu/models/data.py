@@ -10,8 +10,7 @@ Reproduces the semantics of the reference notebook
     flip; val/test = rescale only; images 224×224, binary labels.
 
 The augmentation here is a single batched affine warp in JAX (one fused
-gather per image on device) rather than per-image PIL ops on the host —
-the TPU-native input pipeline.
+gather per image on device) rather than per-image PIL ops on the host.
 """
 
 from __future__ import annotations

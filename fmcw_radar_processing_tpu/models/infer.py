@@ -5,14 +5,14 @@ PNGs produced by the signal chain are classified (human vs calf vs bees)
 and the dashboard consumes the result (reference README.md:20, the
 `vgg16_custom_model_calf_human.h5` artifact of Main_FYP_DCNN_training.ipynb
 cells 21-23). The reference repo itself contains only the training
-notebook; the serving side is re-built here TPU-first:
+notebook; the serving side is re-built here:
 
   * A self-describing **artifact directory**: orbax params checkpoint +
     `meta.json` (model family, input shape, class names) — the framework's
     equivalent of the notebook's opaque `.h5` file.
   * A **jitted batched forward**. Incoming request batches are padded to
     power-of-two buckets so XLA compiles once per bucket, never per
-    request; compute is bfloat16 on the MXU (models/vgg.py).
+    request; compute is bfloat16 (models/vgg.py).
   * PNG/JPEG decode + resize on host (PIL), normalization 1/255 matching
     the notebook's test-time `ImageDataGenerator(rescale=1./255)`
     (cell 17) — no augmentation at inference.
@@ -102,9 +102,8 @@ class SpectrogramClassifier:
         A long-running service must never compile during a request: the
         bucketed forward compiles once per power-of-two batch size, and
         without warmup the first coalesced batch of each size pays the
-        ~1 s trace+compile inside a client's latency window (measured as
-        the p95 of the first r5 serving run). Called at service start
-        (serve/http_service.py)."""
+        trace+compile inside a client's latency window. Called at service
+        start (serve/http_service.py)."""
         b = 1
         while b <= max_bucket:
             np.asarray(self._forward(

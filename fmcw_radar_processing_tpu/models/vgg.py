@@ -5,13 +5,13 @@ micro-Doppler spectrogram PNGs (Main_FYP_DCNN_training.ipynb cell 19:
 VGG16 ImageNet backbone frozen, head = Flatten → Dense(256, relu) →
 Dropout(0.5) → Dense(1, sigmoid); Adam 1e-4, binary cross-entropy).
 
-TPU-native re-design decisions:
+Re-design decisions:
   * Flax/optax instead of Keras; the head is identical; the final sigmoid
     lives in the loss (`sigmoid_binary_cross_entropy`) for numerical
     stability — logits out.
-  * Compute in bfloat16 (MXU-native), parameters in float32. VGG16's conv
-    stacks are exactly the large, static-shape convolutions XLA tiles
-    perfectly onto the MXU.
+  * Compute in bfloat16 (tensor-core native), parameters in float32.
+    VGG16's conv stacks are large, static-shape convolutions that XLA
+    hands to cuDNN.
   * ImageNet weights are an offline artifact (this deployment has no
     egress); `backbone_frozen` reproduces the transfer-learning setup when
     weights are loaded from a local checkpoint, and a from-scratch mode

@@ -2,10 +2,10 @@
 payload assembly.
 
 The reference scales by running more Azure service replicas, each
-processing a whole recording alone (SURVEY §2.3, README.md:35-38). The
-TPU-native model is one *program* spanning hosts: every process holds a
-shard of the frame axis, the chain runs SPMD over the global mesh (ICI
-within a slice, DCN across hosts — XLA inserts the collectives from
+processing a whole recording alone (SURVEY §2.3, README.md:35-38). Here
+the model is one *program* spanning hosts: every process holds a shard of
+the frame axis, the chain runs SPMD over the global mesh (NVLink within a
+host, the network across hosts — XLA inserts the collectives from
 sharding annotations), and process 0 assembles/uploads the JSON payloads
 (SURVEY §5.8: "all_gather to host 0 for JSON assembly").
 
@@ -31,8 +31,9 @@ def initialize(coordinator_address: str | None = None,
     """Bring up jax.distributed when multi-process; return process index.
 
     With no arguments and no cluster environment, this is a no-op
-    (single-process). On TPU pods the arguments are auto-detected by jax
-    from the environment, so bare ``initialize()`` is correct there too.
+    (single-process). Where no cluster environment tells JAX the
+    coordinator, pass ``coordinator_address`` (e.g. ``localhost:<port>``),
+    ``num_processes`` and ``process_id`` explicitly.
     """
     if num_processes is not None and num_processes > 1:
         jax.distributed.initialize(

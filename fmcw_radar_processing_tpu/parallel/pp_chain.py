@@ -2,9 +2,9 @@
 
 The reference has no pipeline parallelism (SURVEY §2.3 — its whole chain is
 one serial MATLAB loop, radar_processing.m:197). This module stages the
-chain across a ``stage`` mesh axis the TPU-native way: a GPipe-style
-microbatch rotation inside ``shard_map``, with `lax.ppermute` moving each
-microbatch's activations one stage to the right over ICI each tick.
+chain across a ``stage`` mesh axis: a GPipe-style microbatch rotation
+inside ``shard_map``, with `lax.ppermute` moving each microbatch's
+activations one stage to the right each tick.
 
 Stage partition (2 stages — the chain's two matmul-dominated halves):
 

@@ -2,8 +2,7 @@
 
 The reference's STFT is one serial ``spectrogram`` call over the whole
 concatenated slow-time signal (radar_processing.m:270-299). Here the
-ENTIRE long-signal export runs SPMD over the mesh (SURVEY §5.7/§5.8,
-VERDICT r3 item 5 — sp was previously correctness-only):
+ENTIRE long-signal export runs SPMD over the mesh (SURVEY §5.7/§5.8):
 
   1. the dp-sharded frame chain produces per-frame outputs sharded over
      the ``data`` axis (parallel/sharded_chain.py — zero communication);
@@ -12,18 +11,20 @@ VERDICT r3 item 5 — sp was previously correctness-only):
      inserts the sort/gather collectives from the sharding annotations;
   3. :class:`ShardedStft` computes each device's STFT columns with the
      W−1 = 19-sample ``ppermute`` halo and pmaxes the global dB max;
-  4. the log-frequency rescale is a per-column contraction, so it runs on
+  4. the log-frequency rescale is a per-column interpolation, so it runs on
      the column-sharded dB map with the sharding preserved — the
      [1024, L] intensity (the chain's largest artifact) is produced fully
      distributed and never resident on one device;
   5. host 0 assembles the JSON payload (parallel/multihost.py).
 
-On a real pod the chain collectives ride ICI and the payload gather rides
-DCN; in CI the same program runs on the virtual CPU mesh
-(tests/test_sp_recording.py) and in the driver's multichip dryrun.
+On the cards of one host the collectives ride NVLink; in CI the same
+program runs on the virtual CPU mesh (tests/test_sp_recording.py) and in
+``__graft_entry__.dryrun_multichip``.
 """
 
 from __future__ import annotations
+
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -58,7 +59,7 @@ class ShardedRecordingPipeline:
     (pipeline/recording.py); outputs match it numerically
     (tests/test_sp_recording.py) — the difference is that every stage is
     sharded, so recording length scales with the mesh instead of one
-    chip's HBM/throughput.
+    card's memory and throughput.
     """
 
     def __init__(self, cfg: RadarConfig, mesh: Mesh,
@@ -84,16 +85,21 @@ class ShardedRecordingPipeline:
         self.stft = ShardedStft(op=self.op, mesh=mesh)
         sig_sharding = NamedSharding(mesh, P(DATA_AXIS))
 
+        freqs = self.stft.freqs
+
+        # Per-column interpolation, run on each device's own columns: the
+        # [1024, L] intensity stays column-sharded, and each device computes
+        # exactly what the single-device export does.
+        @functools.partial(jax.shard_map, mesh=mesh,
+                           in_specs=P(None, DATA_AXIS),
+                           out_specs=P(None, DATA_AXIS))
+        def rescale(db_local):
+            return log_frequency_rescale(freqs, db_local, a.max_freq_bins)[1]
+
         def export(sig_abs, count):
             sig_abs = jax.lax.with_sharding_constraint(sig_abs, sig_sharding)
             _, db, _ = self.stft(sig_abs, count)
-            # Per-column contraction: the column sharding of db carries
-            # through to the [1024, L] intensity — no resharding.
-            _, intensity = log_frequency_rescale(
-                self.stft.freqs, db, a.max_freq_bins,
-                precision=a.rescale_precision, method=a.rescale_method,
-            )
-            return db, intensity
+            return db, rescale(db)
 
         self._export = jax.jit(export)
 

@@ -1,7 +1,7 @@
 """Tensor-parallel frame chain: range bins sharded over the ``model`` axis.
 
 The reference has no tensor parallelism (SURVEY §2.3 — the whole chain is a
-serial MATLAB loop, radar_processing.m:197). The TPU-native TP formulation
+serial MATLAB loop, radar_processing.m:197). The TP formulation here
 shards the *output* axis of the fast-time DFT matmul — the K=256 range bins
 (radar_processing.m:118) — across the ``model`` mesh axis:
 

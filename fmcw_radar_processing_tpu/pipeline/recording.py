@@ -1,11 +1,11 @@
-"""End-to-end recording pipelines — the TPU equivalent of
+"""End-to-end recording pipelines — the accelerator equivalent of
 ``radar_processing('no')`` and ``radar_processing('yes')``.
 
 Host/device split: the whole per-frame chain plus packing and STFT run as a
 handful of jitted stages; the host only (a) reads back the slow-time valid
 count to pick the STFT's nfft bucket — nfft is 2^nextpow2(signal length) in
 the reference (radar_processing.m:273), an inherently data-dependent shape
-that must be a compile-time constant on TPU — and (b) assembles JSON
+that must be a compile-time constant under jit — and (b) assembles JSON
 payloads from final arrays. Buckets are powers of two, so each recording
 shape compiles at most once per bucket and the cache stays small.
 """
@@ -102,10 +102,7 @@ class RadarPipeline:
 
     def __init__(self, cfg: RadarConfig, filename: str = "radar_data",
                  impl: str = "auto"):
-        # 'auto' = the measured-fastest exact impl per backend (r3 matrix,
-        # honest materialization: pallas_profile 2.29M frames/s vs fused
-        # 2.09M on the v5e at identical 78 dB SNR; fused on CPU) — see
-        # frame_chain.resolve_impl.
+        # 'auto' = frame_chain.resolve_impl's choice for the backend.
         self.cfg = cfg
         self.filename = filename
         self._chain = make_frame_chain(cfg, impl=impl)
@@ -126,68 +123,15 @@ class RadarPipeline:
             precision=a.matmul_precision,
         )
 
-        from fmcw_radar_processing_tpu.dsp.stft import (
-            log_bins_axis,
-            resolve_stft_impl,
-        )
-
-        stft_impl = resolve_stft_impl(a.stft_impl, op.hop, op.nfft)
-
-        if stft_impl == "pallas":
-            from fmcw_radar_processing_tpu.ops.stft_pallas import (
-                resolves_tiled,
-                spectrogram_pallas,
-            )
-
-            int_dtype = {"bfloat16": jnp.bfloat16, "int8": jnp.int8}.get(
-                a.intensity_dtype, jnp.float32)
-            # Plumbed config knob (ADVICE r4): the bare fidelity config
-            # keeps "highest" so reference-literal artifacts never
-            # silently inherit the bf16x3 phase-1 kernel; production()
-            # opts into "high". The tiled (large-nfft) path is
-            # HIGHEST-only — downgrade rather than trip its explicit-
-            # conflict ValueError.
-            psd_prec = a.stft_psd_precision
-            psd_store = (jnp.bfloat16 if a.stft_psd_store == "bfloat16"
-                         else jnp.float32)
-            db_store = (jnp.bfloat16 if a.stft_db_store == "bfloat16"
-                        else jnp.float32)
-            if resolves_tiled(op):
-                psd_prec = "highest"
-                psd_store = jnp.float32  # tiled path streams f32 blocks
-                db_store = jnp.float32
-
-            @jax.jit
-            def stage(signal_abs: jax.Array, valid_len: jax.Array):
-                # bf16/int8 intensity emitted by the kernel epilogue —
-                # casting afterwards would round-trip the largest artifact.
-                _, db, intensity = spectrogram_pallas(
-                    signal_abs, valid_len, op, a.max_freq_bins,
-                    intensity_dtype=int_dtype, psd_precision=psd_prec,
-                    psd_store_dtype=psd_store, db_store_dtype=db_store,
-                )
-                freqs = jnp.arange(
-                    op.num_bins, dtype=jnp.float32
-                ) * jnp.float32(op.fs / op.nfft)
-                t = db.shape[-1]
-                times = (jnp.arange(t, dtype=jnp.float32)
-                         + op.window_length / 2.0) / jnp.float32(op.fs)
-                return (times, log_bins_axis(freqs, a.max_freq_bins),
-                        intensity, freqs, db)
-
-            return stage, op
-
         @jax.jit
         def stage(signal_abs: jax.Array, valid_len: jax.Array):
             res = op(signal_abs, valid_len=valid_len)
             db = psd_db(res)
             log_bins, intensity = log_frequency_rescale(
-                res.freqs, db, a.max_freq_bins,
-                precision=a.rescale_precision, method=a.rescale_method,
-            )
+                res.freqs, db, a.max_freq_bins)
             if a.intensity_dtype == "bfloat16":
-                # Cast in the matmul epilogue: halves the write traffic of
-                # the chain's largest tensor (see AlgorithmConfig).
+                # Cast inside the program: halves the device write and the
+                # transfer of the chain's largest tensor (see AlgorithmConfig).
                 intensity = intensity.astype(jnp.bfloat16)
             elif a.intensity_dtype == "int8":
                 from fmcw_radar_processing_tpu.dsp.stft import (
@@ -209,9 +153,8 @@ class RadarPipeline:
         calib likewise [NTS]/[NTS, 2].
 
         Host NumPy input is reshaped to the FLAT row layout before crossing
-        the jit boundary — a free view on the host, but a measured ~8 ms
-        in-graph relayout per 65k frames if a [.., NTS, 2] device parameter
-        has to be reshaped on-chip (see PackedFastTime._flat_rows).
+        the jit boundary — a free view on the host, where an in-graph
+        reshape of a [.., NTS, 2] parameter may be a relayout pass.
         """
         raw = _normalize_raw(raw, self.cfg.nts)
         if np.iscomplexobj(calib) or calib.ndim == 1:
@@ -244,7 +187,6 @@ class RadarPipeline:
             np.asarray(log_bins),
             intensity_np[:, :n_valid],
             np.asarray(freqs),
-            # f32 host copy (the bf16 db-store option reaches here bf16).
             np.asarray(db).astype(np.float32)[:, :n_valid],
         )
 

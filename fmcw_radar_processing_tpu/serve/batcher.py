@@ -2,11 +2,10 @@
 
 The reference's concurrency model is replica scaling — one MPS request
 per worker (reference README.md:35-38) — which cannot batch across
-requests at all. The r4 service serialized whole /classify requests on
-the accelerator lock: the bucketed batched forward (models/infer.py)
-batched within one request, but N concurrent clients queued and each paid
-a full forward (SERVING_r04: p95 10 s under 8-way load, no admission
-control). This module adds the one serving lever replica scaling can't
+requests at all. Serializing whole /classify requests on the accelerator
+lock would batch within one request (models/infer.py), but N concurrent
+clients would queue and each pay a full forward, with no admission
+control. This module adds the one serving lever replica scaling can't
 reach:
 
   * a single dispatcher thread drains EVERYTHING queued the moment the

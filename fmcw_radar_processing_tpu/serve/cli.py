@@ -328,7 +328,7 @@ def cmd_dashboard(args) -> int:
 
 
 def build_parser() -> argparse.ArgumentParser:
-    p = argparse.ArgumentParser(prog="fmcw-tpu")
+    p = argparse.ArgumentParser(prog="fmcw")
     sub = p.add_subparsers(dest="cmd", required=True)
 
     pp = sub.add_parser("process", help="run the signal chain on a recording")
@@ -484,4 +484,9 @@ def main(argv=None) -> int:
 
 
 if __name__ == "__main__":
+    from fmcw_radar_processing_tpu.utils.compile_cache import (
+        enable_compile_cache,
+    )
+
+    enable_compile_cache()
     sys.exit(main())

@@ -47,8 +47,8 @@ class HandlerConfig:
     # Algorithm profile: "fidelity" (default — the reference's literal
     # hop-1 / nfft=2^nextpow2 STFT and f32 artifacts, byte-parity with a
     # MATLAB run) or "production" (AlgorithmConfig.production(): 256-pt
-    # STFT bucket + bf16 intensity + the promoted chain kernels — the r4
-    # matrix's 4.25M frames/s point; payload shapes differ from MATLAB).
+    # STFT bucket + bf16 intensity + three-TF32-pass matmuls; payload
+    # shapes differ from MATLAB).
     profile: str = "fidelity"
 
 

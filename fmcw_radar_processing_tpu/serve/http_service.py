@@ -19,7 +19,7 @@ recording-shape bucket), exposed over stdlib HTTP:
     GET  /healthz   liveness + request counters
     GET  /          service info
 
-Accelerator access is serialized through a lock (the TPU is a single
+Accelerator access is serialized through a lock (the GPU is a single
 shared accelerator; the reference's MPS concurrency model — scale via
 replicas, one request per worker, README.md:35-38 — maps to one in-flight
 chain request per process). /classify goes further than the reference's

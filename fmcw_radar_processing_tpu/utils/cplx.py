@@ -1,14 +1,11 @@
 """Complex-as-pair arithmetic: complex values as a trailing length-2 axis.
 
-The TPU compute path deliberately contains NO complex dtypes: every complex
+The device compute path contains NO complex dtypes: every complex
 quantity is a float32 array with a trailing [re, im] axis. Reasons:
 
   * complex matmuls lower to real-matmul sequences anyway — doing it
-    explicitly lets us pick the 3-multiply (Karatsuba) form and keeps every
-    op MXU/VPU-native and bfloat16-eligible;
-  * this deployment's TPU runtime cannot transfer complex buffers to the
-    host, and executables containing complex contractions produce
-    un-fetchable outputs;
+    explicitly packs the complex 2×2 block structure into one real weight
+    (dsp/fast_time.PackedFastTime), one real GEMM per stage;
   * the magnitude-only consumers (detection, STFT input) never need the
     full complex product.
 
@@ -44,16 +41,22 @@ def pair_abs(x: jax.Array) -> jax.Array:
     return jnp.sqrt(x[..., 0] * x[..., 0] + x[..., 1] * x[..., 1])
 
 
-def mxu_precision(name: str) -> "jax.lax.Precision":
-    """Map a config string to the XLA dot precision.
+def mxu_precision(name: str):
+    """Map a matmul_precision name to what an f32 dot runs as.
 
-    TPU MXUs multiply in bfloat16; an f32 matmul is realized as 1
-    ("default"), 3 ("high"), or 6 ("highest") bf16 passes. DEFAULT
-    quantizes both operands to 8-bit mantissas — enough to cap the radar
-    chain's oracle SNR at ~55 dB (see AlgorithmConfig.matmul_precision).
+    On an NVIDIA GPU (Hopper):
+      "default" — ``Precision.DEFAULT``: one TF32 tensor-core pass (operands
+                  rounded to a 10-bit mantissa, f32 accumulate).
+      "high"    — ``DotAlgorithmPreset.TF32_TF32_F32_X3``: three TF32 passes
+                  (each operand split hi + lo), about 2^-21 relative. Set
+                  explicitly so the meaning does not depend on how a
+                  backend reads ``Precision.HIGH``.
+      "highest" — ``Precision.HIGHEST``: full f32, off the tensor cores.
+    The CPU backend computes every f32 dot in f32 and has no TF32 algorithm,
+    so there each name maps to its ``Precision`` enum.
     """
     try:
-        return {
+        prec = {
             "default": jax.lax.Precision.DEFAULT,
             "high": jax.lax.Precision.HIGH,
             "highest": jax.lax.Precision.HIGHEST,
@@ -63,6 +66,9 @@ def mxu_precision(name: str) -> "jax.lax.Precision":
             f"unknown matmul precision {name!r} "
             f"(expected default|high|highest)"
         ) from None
+    if name == "high" and jax.default_backend() == "gpu":
+        return jax.lax.DotAlgorithmPreset.TF32_TF32_F32_X3
+    return prec
 
 
 def pair_matmul(
@@ -75,8 +81,7 @@ def pair_matmul(
     spec: einsum spec for ONE real contraction (e.g. '...pn,kn->...pk').
     Returns the pair result [..., 2] via 4 real einsums (XLA fuses the
     adds; the matrices are trace-time constants so CSE shares operands).
-    Defaults to true-f32 MXU passes — pair_matmul sits on fidelity paths;
-    the bf16 impl variants are the explicit speed knob.
+    Defaults to full f32 — pair_matmul sits on fidelity paths.
     """
     prec = mxu_precision(precision)
     xr, xi = x[..., 0], x[..., 1]

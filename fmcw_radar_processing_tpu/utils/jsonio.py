@@ -97,8 +97,8 @@ def _sanitize_array(arr: np.ndarray) -> list:
     """Vectorized ndarray → JSON-ready nested lists.
 
     Per-element Python checks on multi-million-cell spectrogram matrices
-    were the pipeline's measured bottleneck (61% of wall in --profile);
-    non-finite masking is done once in NumPy instead.
+    dominate the payload build; non-finite masking is done once in NumPy
+    instead.
     """
     if arr.ndim == 2 and 1 in arr.shape:
         arr = arr.reshape(-1)  # MATLAB: vectors are flat arrays

@@ -6,7 +6,7 @@ storage.m:32,35) plus Azure-side dashboards (SURVEY §5.1/§5.5). The
 framework-native replacement:
 
   * ``StageTimer``   — wall-clock per pipeline stage, with the critical
-    TPU detail handled: jax dispatch is async, so a stage's arrays are
+    device detail handled: jax dispatch is async, so a stage's arrays are
     ``block_until_ready``-synced before its clock stops. Derives
     throughput (items/s) per stage.
   * ``trace``        — context manager around ``jax.profiler`` emitting a
@@ -137,7 +137,7 @@ def trace(trace_dir: str) -> Iterator[None]:
     """Capture a jax profiler trace (TensorBoard `trace_viewer` format).
 
     Wrap the region of interest; view with
-    ``tensorboard --logdir <trace_dir>`` or xprof. Works on TPU and CPU.
+    ``tensorboard --logdir <trace_dir>`` or xprof. Works on GPU and CPU.
     """
     import os
 

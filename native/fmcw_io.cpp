@@ -101,7 +101,7 @@ int fmcw_read_calib(const char* path, uint32_t rx, float* out) {
 }
 
 // Streams frames [start, start+count) of antenna `rx` into `out` laid out
-// as [count, pn, nts, 2] float32 (the TPU pair layout). Real recordings
+// as [count, pn, nts, 2] float32 (the device pair layout). Real recordings
 // (flags bit0 == 0) get imag = 0. Returns 0 on success.
 int fmcw_read_frames_pair(const char* path, uint32_t start, uint32_t count,
                           uint32_t rx, float* out) {

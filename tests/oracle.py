@@ -2,7 +2,7 @@
 
 A deliberately literal, per-frame, loop-based float64 re-statement of
 `radar-etl-pipeline/radar_processing.m` (cited per function), used as ground
-truth for the fused TPU operators. The reference repo ships no raw.bin, so
+truth for the fused device operators. The reference repo ships no raw.bin, so
 this oracle *is* the behavioral spec (SURVEY §7 "hard parts" (f)).
 
 It is test-only code: no JAX, no performance concerns.

@@ -23,7 +23,7 @@ from .oracle import (
     matlab_grow_write,
     process_recording_oracle,
 )
-from .test_pipeline import _mixed_recording, _tpu_layout
+from .test_pipeline import _mixed_recording, _chain_layout
 
 
 def _compat_cfg(**alg_kwargs) -> RadarConfig:
@@ -43,7 +43,7 @@ def test_matlab_grow_write_semantics():
 def test_transposed_measurements_match_oracle(cfg, rng):
     frames, calib = _mixed_recording(cfg, rng, f=24)
     ccfg = _compat_cfg(compat_transposed_measurements=True)
-    out = RadarPipeline(ccfg).process_recording(_tpu_layout(frames), calib)
+    out = RadarPipeline(ccfg).process_recording(_chain_layout(frames), calib)
     payload = out.payloads["radar_data_range_speed_data.json"]
 
     want = process_recording_oracle(frames, calib, ccfg)
@@ -54,7 +54,7 @@ def test_transposed_measurements_match_oracle(cfg, rng):
     # Literal layout has zeros (not NaN) at unwritten cells.
     assert not np.isnan(payload["range"]).any()
     # Default (intent) mode keeps the canonical (T, F) NaN layout.
-    out_intent = RadarPipeline(cfg).process_recording(_tpu_layout(frames), calib)
+    out_intent = RadarPipeline(cfg).process_recording(_chain_layout(frames), calib)
     p_intent = out_intent.payloads["radar_data_range_speed_data.json"]
     assert p_intent["range"].shape == (cfg.algorithm.max_num_targets, 24)
     assert np.isnan(p_intent["range"]).any()
@@ -81,7 +81,7 @@ def test_transposed_literal_builder_against_growth_replay(rng):
 def test_linear_index_snapshot_matches_oracle(cfg, rng):
     frames, calib = _mixed_recording(cfg, rng, f=24)  # 24·16 = 384 chirps
     ccfg = _compat_cfg(compat_linear_index_snapshot=True)
-    out = RadarPipeline(ccfg).process_recording(_tpu_layout(frames), calib)
+    out = RadarPipeline(ccfg).process_recording(_chain_layout(frames), calib)
     payload = out.payloads["radar_data_fft_data.json"]
 
     want = process_recording_oracle(frames, calib, ccfg)
@@ -91,6 +91,6 @@ def test_linear_index_snapshot_matches_oracle(cfg, rng):
                                rtol=3e-4, atol=0.05)
     assert payload["frame_index"] == 100  # the reference's literal label
     # And it differs from the intent-mode (integrated frame) snapshot.
-    out_i = RadarPipeline(cfg).process_recording(_tpu_layout(frames), calib)
+    out_i = RadarPipeline(cfg).process_recording(_chain_layout(frames), calib)
     intent_mag = out_i.payloads["radar_data_fft_data.json"]["magnitude"]
     assert not np.allclose(payload["magnitude"], intent_mag)

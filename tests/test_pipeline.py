@@ -1,5 +1,6 @@
 """End-to-end pipeline vs the MATLAB-semantics oracle."""
 
+import dataclasses
 import json
 
 import numpy as np
@@ -17,7 +18,7 @@ from .oracle import (
 )
 
 
-def _tpu_layout(frames):
+def _chain_layout(frames):
     return np.swapaxes(frames, -1, -2)
 
 
@@ -35,7 +36,7 @@ def _mixed_recording(cfg, rng, f=24):
 def test_recording_outputs_match_oracle(cfg, rng):
     frames, calib = _mixed_recording(cfg, rng)
     pipe = RadarPipeline(cfg)
-    got = pipe.process_recording(_tpu_layout(frames), calib)
+    got = pipe.process_recording(_chain_layout(frames), calib)
     want = process_recording_oracle(frames, calib, cfg)
 
     np.testing.assert_array_equal(got.detected, want.detected)
@@ -52,7 +53,7 @@ def test_slow_time_packing_matches_oracle(cfg, rng):
 
     frames, calib = _mixed_recording(cfg, rng)
     pipe = RadarPipeline(cfg)
-    out = pipe.run_chain(_tpu_layout(frames), calib)
+    out = pipe.run_chain(_chain_layout(frames), calib)
     signal, count = pack_slow_time(out.strongest_chirps, out.detected, cfg.pn)
     want = process_recording_oracle(frames, calib, cfg)
     count = int(count)
@@ -97,7 +98,7 @@ def test_slow_time_packing_edge_cases(cfg):
 def test_spectrogram_intensity_matches_oracle(cfg, rng):
     frames, calib = _mixed_recording(cfg, rng)
     pipe = RadarPipeline(cfg)
-    got = pipe.process_recording(_tpu_layout(frames), calib)
+    got = pipe.process_recording(_chain_layout(frames), calib)
     want = process_recording_oracle(frames, calib, cfg)
 
     iq = np.abs(want.slow_time_signal)
@@ -119,7 +120,7 @@ def test_spectrogram_intensity_matches_oracle(cfg, rng):
 def test_payload_schemas(cfg, rng):
     frames, calib = _mixed_recording(cfg, rng)
     pipe = RadarPipeline(cfg, filename="radar_data")
-    got = pipe.process_recording(_tpu_layout(frames), calib)
+    got = pipe.process_recording(_chain_layout(frames), calib)
     names = set(got.payloads)
     assert names == {
         "spectrogram_data.json",
@@ -161,7 +162,7 @@ def test_activity_mode_batches(cfg, rng):
 
     cfg2 = RadarConfig.create(cfg.device, alg)
     pipe = RadarPipeline(cfg2)
-    batches = pipe.process_activity(_tpu_layout(frames), calib)
+    batches = pipe.process_activity(_chain_layout(frames), calib)
     assert 1 <= len(batches) <= 2  # capped at max_plots
     b = batches[0]
     assert b.batch == 1 and b.start_frame == 1 and b.end_frame == 8
@@ -179,7 +180,7 @@ def test_activity_batch_matches_oracle_spectrogram(cfg, rng):
     alg = dataclasses.replace(cfg.algorithm, batch_size=8)
     cfg2 = RadarConfig.create(cfg.device, alg)
     pipe = RadarPipeline(cfg2)
-    batches = pipe.process_activity(_tpu_layout(frames), calib)
+    batches = pipe.process_activity(_chain_layout(frames), calib)
 
     # Oracle for batch 1 == oracle of the first 8 frames.
     want_b = process_recording_oracle(frames[:8], calib, cfg2)
@@ -207,11 +208,11 @@ def test_run_chain_accepts_all_raw_layouts(cfg, rng):
     from fmcw_radar_processing_tpu.utils.cplx import to_pair
 
     frames, calib = _mixed_recording(cfg, rng, f=8)
-    tpu = _tpu_layout(frames)  # [F, PN, NTS] complex
+    cplx = _chain_layout(frames)  # [F, PN, NTS] complex
     pipe = RadarPipeline(cfg)
 
-    ref = pipe.run_chain(tpu, calib)
-    pair = to_pair(tpu)  # [F, PN, NTS, 2]
+    ref = pipe.run_chain(cplx, calib)
+    pair = to_pair(cplx)  # [F, PN, NTS, 2]
     flat = pair.reshape(*pair.shape[:2], -1)  # [F, PN, 2·NTS] real float!
     for alt in (pair, flat):
         got = pipe.run_chain(alt, calib)
@@ -223,7 +224,7 @@ def test_run_chain_accepts_all_raw_layouts(cfg, rng):
         )
 
     # Real samples [F, PN, NTS] (imag = 0) go through to_pair, not crash.
-    real = np.ascontiguousarray(tpu.real)
+    real = np.ascontiguousarray(cplx.real)
     out_real = pipe.run_chain(real, calib)
     assert np.asarray(out_real.waterfall).shape == ref.waterfall.shape
 
@@ -235,7 +236,7 @@ def test_run_chain_accepts_all_raw_layouts(cfg, rng):
 
 
 def test_bf16_intensity_option(cfg, rng):
-    """intensity_dtype='bfloat16' halves the largest HBM tensor; the
+    """intensity_dtype='bfloat16' halves the largest device tensor; the
     payload still comes back float32 and within bf16 quantization (~0.4%
     relative => sub-dB absolute on display values) of the f32 run."""
     import dataclasses
@@ -246,8 +247,8 @@ def test_bf16_intensity_option(cfg, rng):
     pipe32 = RadarPipeline(cfg)
     a16 = dataclasses.replace(cfg.algorithm, intensity_dtype="bfloat16")
     pipe16 = RadarPipeline(RadarConfig.create(cfg.device, a16))
-    got32 = pipe32.process_recording(_tpu_layout(frames), calib)
-    got16 = pipe16.process_recording(_tpu_layout(frames), calib)
+    got32 = pipe32.process_recording(_chain_layout(frames), calib)
+    got16 = pipe16.process_recording(_chain_layout(frames), calib)
 
     assert got16.spectrogram_intensity.dtype == np.float32
     m = got32.spectrogram_intensity > -120
@@ -257,65 +258,26 @@ def test_bf16_intensity_option(cfg, rng):
     )
 
 
-def test_stft_impl_pallas_matches_xla(cfg, rng):
-    """The fused Pallas spectrogram export (stft_impl='pallas') plugs into
-    process_recording and reproduces the XLA composition's artifacts."""
-    import dataclasses
-
-    from fmcw_radar_processing_tpu.config import RadarConfig
-
-    frames, calib = _mixed_recording(cfg, rng)
-    ax = dataclasses.replace(cfg.algorithm, stft_impl="xla")
-    ap = dataclasses.replace(cfg.algorithm, stft_impl="pallas")
-    got_x = RadarPipeline(RadarConfig.create(cfg.device, ax)).process_recording(
-        _tpu_layout(frames), calib)
-    got_p = RadarPipeline(RadarConfig.create(cfg.device, ap)).process_recording(
-        _tpu_layout(frames), calib)
-
-    assert got_p.spectrogram_intensity.shape == got_x.spectrogram_intensity.shape
-    # The bare (fidelity) config plumbs stft_psd_precision="highest" into
-    # the kernel (ADVICE r4 — it used to silently inherit the bf16x3
-    # phase 1), so the match is tight well below the display band; only
-    # the √(scale·dbl) folding's rounding wiggle at nulls remains.
-    m = got_x.spectrogram_intensity > -40
-    np.testing.assert_allclose(got_p.spectrogram_intensity[m],
-                               got_x.spectrogram_intensity[m], atol=5e-3)
-    deep = (got_x.spectrogram_intensity <= -40) & (
-        got_x.spectrogram_intensity > -120)
-    np.testing.assert_allclose(got_p.spectrogram_intensity[deep],
-                               got_x.spectrogram_intensity[deep], atol=2e-2)
-    mp = got_x.spectrogram_psd_db > -40
-    np.testing.assert_allclose(got_p.spectrogram_psd_db[mp],
-                               got_x.spectrogram_psd_db[mp], atol=2e-3)
-    np.testing.assert_allclose(got_p.spectrogram_times, got_x.spectrogram_times,
-                               rtol=1e-6)
-    np.testing.assert_allclose(got_p.spectrogram_freqs, got_x.spectrogram_freqs,
-                               rtol=1e-6)
-
-
 def test_production_profile_display_band(cfg, rng):
-    """The full promoted production profile (bf16x3 chain-adjacent
-    export, bf16 PSD store, bf16 intensity) holds the display band within
-    the 0.15 dB promotion criterion against the f32 fidelity pipeline on
-    the same nfft bucket."""
+    """The production profile (bf16 intensity, "high" matmuls) holds the
+    display band within the 0.15 dB criterion against the f32 fidelity
+    pipeline on the same nfft bucket."""
     import dataclasses
 
     from fmcw_radar_processing_tpu.config import AlgorithmConfig, RadarConfig
 
     frames, calib = _mixed_recording(cfg, rng)
-    a_ref = dataclasses.replace(cfg.algorithm, stft_nfft=256,
-                                stft_impl="xla")
+    a_ref = dataclasses.replace(cfg.algorithm, stft_nfft=256)
     a_prod = AlgorithmConfig.production()
     got_r = RadarPipeline(RadarConfig.create(cfg.device, a_ref)).process_recording(
-        _tpu_layout(frames), calib)
+        _chain_layout(frames), calib)
     got_p = RadarPipeline(RadarConfig.create(cfg.device, a_prod)).process_recording(
-        _tpu_layout(frames), calib)
+        _chain_layout(frames), calib)
     m = got_r.spectrogram_intensity > -40
     err = np.abs(got_p.spectrogram_intensity[m]
                  - got_r.spectrogram_intensity[m]).max()
     assert err <= 0.16, err  # 0.15 criterion + comparison slack
-    # The exported dB map (the PNG source) under the bf16 db-store option:
-    # pure quantization, ≤ 0.125 dB at the clim edge + kernel noise.
+    # The exported dB map (the PNG source) stays f32.
     assert got_p.spectrogram_psd_db.dtype == np.float32
     md = got_r.spectrogram_psd_db > -40
     errd = np.abs(got_p.spectrogram_psd_db[md]
@@ -323,21 +285,8 @@ def test_production_profile_display_band(cfg, rng):
     assert errd <= 0.15, errd
 
 
-def test_psd_precision_plumbing():
-    """Config-level psd-precision defaults (ADVICE r4): bare fidelity
-    config = 'highest'; production() opts into the bf16x3 'high'."""
-    from fmcw_radar_processing_tpu.config import AlgorithmConfig
-
-    assert AlgorithmConfig().stft_psd_precision == "highest"
-    assert AlgorithmConfig.production().stft_psd_precision == "high"
-    # Overrides still thread through.
-    assert AlgorithmConfig.production(
-        stft_psd_precision="highest").stft_psd_precision == "highest"
-
-
-@pytest.mark.parametrize("stft_impl", ["xla", "pallas"])
-def test_int8_intensity_option(cfg, rng, stft_impl):
-    """intensity_dtype='int8' (r5): the payload comes back float32 with
+def test_int8_intensity_option(cfg, rng):
+    """intensity_dtype='int8': the payload comes back float32 with
     each displayed bin within half a quantization step (≈0.083 dB ≤ the
     0.15 dB display-band criterion) of the f32 run; sub-range bins clamp
     to INT8_DB_RANGE's floor."""
@@ -347,13 +296,12 @@ def test_int8_intensity_option(cfg, rng, stft_impl):
     from fmcw_radar_processing_tpu.dsp.stft import INT8_DB_RANGE, int8_db_step
 
     frames, calib = _mixed_recording(cfg, rng)
-    a32 = dataclasses.replace(cfg.algorithm, stft_impl=stft_impl)
-    a8 = dataclasses.replace(cfg.algorithm, stft_impl=stft_impl,
-                             intensity_dtype="int8")
+    a32 = cfg.algorithm
+    a8 = dataclasses.replace(cfg.algorithm, intensity_dtype="int8")
     got32 = RadarPipeline(RadarConfig.create(cfg.device, a32)).process_recording(
-        _tpu_layout(frames), calib)
+        _chain_layout(frames), calib)
     got8 = RadarPipeline(RadarConfig.create(cfg.device, a8)).process_recording(
-        _tpu_layout(frames), calib)
+        _chain_layout(frames), calib)
 
     assert got8.spectrogram_intensity.dtype == np.float32
     lo, _ = INT8_DB_RANGE
@@ -366,3 +314,46 @@ def test_int8_intensity_option(cfg, rng, stft_impl):
     )
     below = got32.spectrogram_intensity < lo - 1.0
     assert np.all(got8.spectrogram_intensity[below] == np.float32(lo))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
+def test_export_intensity_dtypes_match_oracle(cfg, rng, dtype):
+    """The XLA spectrogram export in each intensity storage dtype holds the
+    display band (oracle bins ≥ −40 dB, the reference PNG's clim) within
+    its quantization bound of the f64 oracle."""
+    import dataclasses
+
+    from fmcw_radar_processing_tpu.config import RadarConfig
+    from fmcw_radar_processing_tpu.dsp.stft import int8_db_step
+
+    frames, calib = _mixed_recording(cfg, rng)
+    alg = dataclasses.replace(cfg.algorithm, stft_nfft=256,
+                              intensity_dtype=dtype)
+    ccfg = RadarConfig.create(cfg.device, alg)
+    got = RadarPipeline(ccfg).process_recording(_chain_layout(frames), calib)
+    want = process_recording_oracle(frames, calib, ccfg)
+    freqs, _, p = spectrogram_oracle(np.abs(want.slow_time_signal),
+                                     1.0 / cfg.derived.prt, nfft=256)
+    _, want_i = log_rescale_oracle(freqs, psd_db_oracle(p))
+    assert got.spectrogram_intensity.dtype == np.float32
+    assert got.spectrogram_intensity.shape == want_i.shape
+    band = want_i >= -40.0
+    err = np.abs(got.spectrogram_intensity - want_i)[band].max()
+    bound = {"float32": 1e-3, "bfloat16": 0.125 + 1e-3,
+             "int8": int8_db_step() / 2 + 1e-3}[dtype]
+    assert err <= bound, (dtype, err)
+
+
+def test_algorithm_config_has_no_device_knobs():
+    """The removed export knobs stay removed; production() sets only the
+    STFT bucket, the intensity dtype and the matmul precision."""
+    from fmcw_radar_processing_tpu.config import AlgorithmConfig
+
+    fields = {f.name for f in dataclasses.fields(AlgorithmConfig)}
+    assert not fields & {"stft_impl", "stft_psd_precision", "stft_psd_store",
+                         "stft_db_store", "rescale_method",
+                         "rescale_precision"}
+    base, prod = AlgorithmConfig(), AlgorithmConfig.production()
+    changed = {f for f in fields if getattr(base, f) != getattr(prod, f)}
+    assert changed == {"stft_nfft", "intensity_dtype", "matmul_precision"}
+    assert AlgorithmConfig.production(stft_nfft=512).stft_nfft == 512

@@ -1,4 +1,4 @@
-"""Robustness-sweep plumbing (tiny sizes — the recorded sweep runs on TPU).
+"""Robustness-sweep plumbing (tiny sizes — the recorded sweep runs on the accelerator).
 
 Checks that degraded test sets generate through the real chain, the
 detection-rate accounting works (high SNR detects, hopeless SNR doesn't),

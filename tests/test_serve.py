@@ -125,3 +125,41 @@ def test_cli_config(tmp_path):
     base = str(tmp_path / "rec")
     cli_main(["synth", base, "--frames", "2"])
     assert cli_main(["config", base + ".xml"]) == 0
+
+
+_IMPORT_PROBE = r"""
+import os, sys
+from fmcw_radar_processing_tpu.serve import cli
+d, mode = sys.argv[1], sys.argv[2]
+blob = os.path.join(d, "blob")
+os.makedirs(blob)
+assert cli.main(["synth", os.path.join(blob, "rec"), "--frames", "24",
+                 "--target", "7.5:3"]) == 0
+if mode == "process":
+    rc = cli.main(["process", os.path.join(blob, "rec"),
+                   "--output-dir", os.path.join(d, "out")])
+else:
+    os.makedirs(os.path.join(d, "work"))
+    rc = cli.main(["serve-once", "--fdata", "rec", "--workdir",
+                   os.path.join(d, "work"), "--storage", "local:" + blob,
+                   "--profile", "production"])
+top = {m.split(".")[0] for m in sys.modules}
+print(rc, sorted(top & {"PIL", "flax", "orbax", "optax", "tensorflow",
+                        "torch", "matplotlib"}))
+"""
+
+
+@pytest.mark.parametrize("mode", ["process", "serve-once"])
+def test_signal_path_imports_only_guaranteed_packages(tmp_path, mode):
+    """process and serve-once (the /process handler) write every artifact,
+    the PNG included, without PIL or the classifier's packages."""
+    import subprocess
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    r = subprocess.run(
+        [sys.executable, "-c", _IMPORT_PROBE, str(tmp_path), mode],
+        cwd=root, capture_output=True, text=True, timeout=300,
+        env=dict(os.environ, JAX_PLATFORMS="cpu"))
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip().splitlines()[-1] == "0 []"

@@ -1,15 +1,11 @@
-"""SNR-ladder invariants (VERDICT r2 item 5).
+"""SNR-ladder invariants (tools/snr_ladder.py).
 
-The recorded finding (SNR_LADDER.json, measured on the v5e): the former
-36 dB full-map spectrogram SNR was MXU default-precision quantization
-(1 bf16 pass per f32 matmul), fixed by matmul_precision="highest"; the
-remaining full-map ceiling (~72 dB) lives entirely in bins below −120 dB,
-where the log scale amplifies f32 cancellation error at spectral nulls —
-physically invisible (the reference renders clim [−40, 0],
-radar_processing.m:344). This test pins the structure of that result on
-the CPU backend (exact f32 matmuls, like the TPU at "highest"): high
-linear-PSD SNR, tight display-band dB error, and the floor-band origin of
-the full-map gap.
+The full-map spectrogram dB SNR is bounded by bins below −120 dB, where the
+log scale amplifies f32 cancellation error at spectral nulls — physically
+invisible (the reference renders clim [−40, 0], radar_processing.m:344).
+This test pins the structure of that result on the CPU backend (exact f32
+matmuls): high linear-PSD SNR, tight display-band dB error, and the
+floor-band origin of the full-map gap.
 """
 
 import numpy as np

@@ -92,3 +92,55 @@ def test_pipeline_exposes_linear_psd():
         lin.shape[0], out.spectrogram_intensity.shape[1],
     )
     assert np.max(out.spectrogram_psd_db) == pytest.approx(0.0, abs=1e-4)
+
+
+def _decode_png_rgb(path):
+    """Stdlib decoder for the writer's subset: 8-bit RGB, filter 0."""
+    import struct
+    import zlib
+
+    data = open(path, "rb").read()
+    assert data[:8] == b"\x89PNG\r\n\x1a\n"
+    pos, chunks = 8, {}
+    while pos < len(data):
+        (n,) = struct.unpack(">I", data[pos:pos + 4])
+        kind, body = data[pos + 4:pos + 8], data[pos + 8:pos + 8 + n]
+        (crc,) = struct.unpack(">I", data[pos + 8 + n:pos + 12 + n])
+        assert crc == zlib.crc32(kind + body) & 0xFFFFFFFF, kind
+        chunks[kind] = chunks.get(kind, b"") + body
+        pos += 12 + n
+    w, h, depth, ctype = struct.unpack(">IIBB", chunks[b"IHDR"][:10])
+    assert (depth, ctype) == (8, 2)
+    rows = np.frombuffer(zlib.decompress(chunks[b"IDAT"]), np.uint8)
+    rows = rows.reshape(h, 1 + 3 * w)
+    assert not rows[:, 0].any()  # filter type 0 on every scanline
+    return rows[:, 1:].reshape(h, w, 3)
+
+
+@pytest.mark.parametrize("shape", [(1, 1), (7, 5), (800, 1200)])
+def test_png_writer_round_trip(tmp_path, shape):
+    """write_png_rgb emits a valid 8-bit RGB PNG that decodes to the same
+    pixels, by a stdlib decoder and, where installed, by PIL."""
+    from fmcw_radar_processing_tpu.pipeline.spectrogram_image import (
+        write_png_rgb,
+    )
+
+    rgb = np.random.default_rng(0).integers(
+        0, 256, (*shape, 3)).astype(np.uint8)
+    path = str(tmp_path / "x.png")
+    write_png_rgb(path, rgb)
+    np.testing.assert_array_equal(_decode_png_rgb(path), rgb)
+    try:
+        from PIL import Image
+    except ImportError:
+        return
+    np.testing.assert_array_equal(np.asarray(Image.open(path)), rgb)
+
+
+def test_png_writer_rejects_non_rgb(tmp_path):
+    from fmcw_radar_processing_tpu.pipeline.spectrogram_image import (
+        write_png_rgb,
+    )
+
+    with pytest.raises(ValueError, match="H, W, 3"):
+        write_png_rgb(str(tmp_path / "x.png"), np.zeros((4, 4), np.uint8))
